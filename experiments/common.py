@@ -17,16 +17,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def setup(x64: bool | None = None):
+    """Float64 unless ``x64=False`` or ``LGT_X64=0``; compiled programs
+    cached by ``linpde_gp_tpu.backend.enable_compile_cache``."""
     import jax
 
     if x64 is None:
-        env = os.environ.get("LGT_X64")
-        if env is not None:
-            x64 = env not in ("0", "false", "False")
-        else:
-            x64 = jax.default_backend() != "tpu"
+        x64 = os.environ.get("LGT_X64", "1") not in ("0", "false", "False")
     jax.config.update("jax_enable_x64", x64)
     import linpde_gp_tpu as lgt
+    from linpde_gp_tpu import backend
+
+    backend.enable_compile_cache()
 
     if not x64:
         lgt.config.set(cholesky_jitter=1e-6)
@@ -63,7 +64,7 @@ def report(name, metrics, timer: StageTimer | None = None, checks=None):
 
     ``checks``: mapping ``metric -> ("<=" | ">=", bound)``.  A breach
     raises, so ``run_all.py`` exits nonzero — regressions in experiment
-    accuracy fail loudly instead of silently drifting in RESULTS.md.
+    accuracy fail loudly instead of silently drifting.
     Skipped when ``LGT_SKIP_CHECKS=1`` (e.g. exploratory runs).
     """
     payload = {"experiment": name, "metrics": metrics}

@@ -1,18 +1,16 @@
 """Measure the float32 streaming-Gram noise floor: plain vs compensated.
 
-Quantifies VERDICT r2 item 1 on the chip:
-
-1. Entry accuracy at n=4096: computed Gram (plain f32 Pallas vs
-   compensated float-float Pallas) against the float64 host oracle —
+1. Entry accuracy at n=4096: computed float32 Gram (plain vs
+   compensated float-float) against the float64 host oracle —
    max per-entry error AND the spectral norm ``||E||_2`` of the error
    matrix (power iteration on the host).  The coherent part is what
    drives ``lambda_min`` negative: plain f32 measured at
    ``||E||_2 ~ 1e-6 * n * k(0)``; compensated must cut it by >=1e3.
 2. Pair throughput at n=32768: steady-state streaming matvec wall-clock
-   in both modes — the cost table for PERFORMANCE.md.
+   in both modes (``xla_gram_matvec``, the device route).
 
-Usage: ``python experiments/gram_noise_floor.py`` (TPU; CPU fallback
-uses interpret-mode Pallas and reports the same table at small n).
+Usage: ``python experiments/gram_noise_floor.py`` (GPU; on the CPU it
+reports the same table at small n).
 """
 
 from __future__ import annotations
@@ -30,26 +28,9 @@ def _log(msg):
     print(f"# noise_floor: {msg}", file=sys.stderr, flush=True)
 
 
-def _enable_persistent_cache():
-    import jax
-
-    if jax.default_backend() != "tpu":
-        return
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-    )
-    os.makedirs(cache_dir, exist_ok=True)
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:
-        pass
-
-
 def _f64_gram_host(scale, terms, X):
     """Float64 oracle on the host (numpy), via the collapsed groups."""
-    from linpde_gp_tpu.ops.pallas_gram import _collapse_terms
+    from linpde_gp_tpu.ops.gram import _collapse_terms
 
     groups = _collapse_terms(tuple(terms))
     X = X.astype(np.float64)
@@ -106,27 +87,20 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_default_matmul_precision", "highest")
-    _enable_persistent_cache()
-
     import linpde_gp_tpu as lgt
+    from linpde_gp_tpu import backend
     from linpde_gp_tpu.ops import diffops
     from linpde_gp_tpu.ops.transforms import apply_operator_to_kernel
-    from linpde_gp_tpu.ops.pallas_gram import (
+    from linpde_gp_tpu.ops.gram import (
         kernel_term_specs,
-        pallas_gram,
-        pallas_gram_matvec,
+        xla_gram_matvec,
+        terms_gram,
     )
 
-    on_tpu = jax.default_backend() == "tpu"
-    n_acc = int(os.environ.get("NF_N", 4096 if on_tpu else 768))
-    n_thr = int(os.environ.get("NF_THROUGHPUT_N", 32768 if on_tpu else 2048))
-    if os.environ.get("NF_TILE"):
-        lgt_tile = int(os.environ["NF_TILE"])
-        from linpde_gp_tpu.config import config as _cfg
-
-        _cfg.set(matvec_tile_compensated=lgt_tile)
-        _log(f"compensated matvec tile override: {lgt_tile}")
+    backend.enable_compile_cache()
+    on_gpu = backend.platform() == "gpu"
+    n_acc = int(os.environ.get("NF_N", 4096 if on_gpu else 768))
+    n_thr = int(os.environ.get("NF_THROUGHPUT_N", 32768 if on_gpu else 2048))
 
     prior_cov = 1.0 * lgt.kernels.TensorProduct(
         lgt.kernels.Matern((), nu=1.5, lengthscales=2.5),
@@ -154,7 +128,7 @@ def main():
         t0 = time.perf_counter()
         K = scale * np.asarray(
             jax.jit(
-                lambda a: pallas_gram(terms, a, a, compensated=comp)
+                lambda a: terms_gram(terms, a, a, compensated=comp)
             )(x_dev),
             np.float64,
         )
@@ -195,7 +169,7 @@ def main():
     table = {}
     for mode, comp in (("plain", False), ("compensated", True)):
         fn = jax.jit(
-            lambda a, w: pallas_gram_matvec(terms, a, a, w, compensated=comp)
+            lambda a, w: xla_gram_matvec(terms, a, a, w, compensated=comp)
         )
         t0 = time.perf_counter()
         out = fn(xt_dev, v_dev)

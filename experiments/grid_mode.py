@@ -1,5 +1,5 @@
 """Grid-mode north star: heat-1D conditioned on a (500 x 200) = 1e5-point
-TensorProductGrid in single-digit seconds (VERDICT r4 item 4).
+TensorProductGrid in single-digit seconds.
 
 The reference's own heat experiment collocates on a tensor-product grid
 (``experiments/0002_heat_1d.ipynb``, ``N_pde=(100, 20)``) and keeps
@@ -14,9 +14,11 @@ the f32 resolution-floored hybrid Nystrom preconditioner
 (``pcg_ff``) keep the iteration count and the per-iteration dispatch
 overhead both small.
 
-Usage:  python experiments/grid_mode_tpu.py             (TPU, (500,200))
-        GM_NT=100 GM_NX=20 python experiments/grid_mode_tpu.py
-CPU fallback runs a miniature (64 x 32, float64) for logic verification.
+Usage:  python experiments/grid_mode.py             (GPU, (500,200))
+        GM_NT=100 GM_NX=20 python experiments/grid_mode.py
+        GM_X64=0 python experiments/grid_mode.py   (float32: compensated
+                                                   matvec, device-state CG)
+On the CPU it runs a miniature (64 x 32).
 """
 
 import json
@@ -34,43 +36,32 @@ def _log(msg):
 
 
 def main():
-    import jax
+    from common import setup
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-    )
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu:
-        os.makedirs(cache_dir, exist_ok=True)
-        try:
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        except Exception:
-            pass
-    jax.config.update("jax_default_matmul_precision", "highest")
-    # GM_X64=0 forces the f32 path on CPU (debug repro of chip behavior).
-    x64 = bool(int(os.environ.get("GM_X64", 0 if on_tpu else 1)))
-    if x64 and not on_tpu:
-        jax.config.update("jax_enable_x64", True)
+    x64 = bool(int(os.environ.get("GM_X64", 1)))
+    lgt = setup(x64)
+    import jax
+    from linpde_gp_tpu import backend
+
+    on_gpu = backend.platform() == "gpu"
 
     import jax.numpy as jnp
 
-    import linpde_gp_tpu as lgt
     from linpde_gp_tpu.models.domains.grid import TensorProductGrid
     from linpde_gp_tpu.models.iterative import IterativeGPRegressor
 
-    n_t = int(os.environ.get("GM_NT", 500 if on_tpu else 64))
-    n_x = int(os.environ.get("GM_NX", 200 if on_tpu else 32))
-    n_ic = int(os.environ.get("GM_N_IC", 96 if on_tpu else 48))
-    n_bc = int(os.environ.get("GM_N_BC", 48 if on_tpu else 24))
-    nq = int(os.environ.get("GM_NQ", 8192 if on_tpu else 512))
-    noise_rel = float(os.environ.get("GM_NOISE", 1e-3 if on_tpu else 1e-6))
-    anchor_noise = float(os.environ.get("GM_ANCHOR_NOISE", 1e-5 if on_tpu else 1e-12))
-    rank = int(os.environ.get("GM_RANK", 2048 if on_tpu else 256))
-    tol = float(os.environ.get("GM_TOL", 1e-5 if on_tpu else 1e-6))
-    maxiter = int(os.environ.get("GM_MAXITER", 512 if on_tpu else 4000))
-    f32 = on_tpu or not x64
+    n_t = int(os.environ.get("GM_NT", 500 if on_gpu else 64))
+    n_x = int(os.environ.get("GM_NX", 200 if on_gpu else 32))
+    n_ic = int(os.environ.get("GM_N_IC", 96 if on_gpu else 48))
+    n_bc = int(os.environ.get("GM_N_BC", 48 if on_gpu else 24))
+    nq = int(os.environ.get("GM_NQ", 8192 if on_gpu else 512))
+    noise_rel = float(os.environ.get("GM_NOISE", 1e-3 if on_gpu else 1e-6))
+    # A float32 anchor Cholesky breaks down near eps32 * ||A11|| * O(n1).
+    anchor_noise = float(os.environ.get("GM_ANCHOR_NOISE", 1e-12 if x64 else 1e-5))
+    rank = int(os.environ.get("GM_RANK", 2048 if on_gpu else 256))
+    tol = float(os.environ.get("GM_TOL", 1e-5 if on_gpu else 1e-6))
+    maxiter = int(os.environ.get("GM_MAXITER", 512 if on_gpu else 4000))
+    f32 = not x64
     dtype = np.float32 if f32 else np.float64
     device_cg = bool(int(os.environ.get("GM_DEVICE_CG", 1 if f32 else 0)))
     compensated = bool(int(os.environ.get("GM_COMP", 1 if f32 else 0)))
@@ -114,10 +105,10 @@ def main():
     )
     X_anchor = np.concatenate([X_ic, X_bc]).astype(dtype)
     Y_anchor = np.asarray(
-        u_star(jnp.asarray(X_anchor, jnp.float64 if not on_tpu else jnp.float32))
+        u_star(jnp.asarray(X_anchor))
     ).astype(dtype)
 
-    from linpde_gp_tpu.ops.pallas_gram import kernel_term_specs
+    from linpde_gp_tpu.ops.gram import kernel_term_specs
     from linpde_gp_tpu.ops.transforms import apply_operator_to_kernel
 
     k_hh = apply_operator_to_kernel(
@@ -160,8 +151,7 @@ def main():
          f"iters={iters} relres={relres:.3e}")
 
     # Steady-state repeat: a fresh regressor re-runs build + solve from
-    # the warm compile caches (this is the number vs the VERDICT's
-    # <=10 s grid-mode target).
+    # the warm compile caches.
     t0 = time.perf_counter()
     reg2 = IterativeGPRegressor(
         prior, X_pde, Y_pde, L=H,
@@ -217,7 +207,7 @@ def main():
         "posterior_eval_s": round(t_eval, 3),
         "rmse_vs_analytic": rmse,
         "max_err_vs_analytic": max_err,
-        "backend": "tpu" if on_tpu else "cpu",
+        "backend": backend.platform(),
     }))
 
 

@@ -1,28 +1,27 @@
 """Preconditioner spectroscopy for the north-star conditioning problem.
 
-Round-5 driver question (VERDICT item 1): the N=1e5 honest-noise solve
-costs 326 PCG iterations x 1.81 s — which preconditioner cuts the
-iteration count to <=~80?  Chip experiments cost 60-500 s per cold
-compile, so this script answers the question on the HOST first: it
-assembles the exact bench Gram (heat ``H k H*`` on the TensorProduct
-Matern(1.5)xMatern(2.5) prior, uniform space-time points — bench.py's
-`_build_kernels`) in float64 at a reduced n, measures its spectrum, and
-counts flexible-PCG iterations under candidate preconditioners:
+Question: the N=1e5 honest-noise solve took 326 PCG iterations with a
+float32 rank-4096 Nystrom preconditioner — which preconditioner cuts the
+iteration count to <=~80?  This script answers it on the HOST: it
+assembles the exact benchmark Gram (heat ``H k H*`` on the TensorProduct
+Matern(1.5)xMatern(2.5) prior, uniform space-time points) in float64 at
+a reduced n, measures its spectrum, and counts flexible-PCG iterations
+under candidate preconditioners:
 
-- Nystrom rank sweep (the current scheme; ranks beyond the round-4
-  rank-4096 memory wall, feasible on chip via the streamed build);
-- IDEAL two-level: M = (K + s2p I)^{-1} by Cholesky — the limit of the
-  plain-f32 inner solve proposed by VERDICT r4 (s2p = the enlarged
-  nugget the f32 coherent error floor forces);
+- Nystrom rank sweep (the current scheme, including ranks above 4096,
+  which the streamed build makes feasible);
+- IDEAL two-level: M = (K + s2p I)^{-1} by Cholesky — the limit of a
+  plain-f32 inner solve (s2p = the enlarged nugget the f32 coherent
+  error floor forces);
 - practical two-level: k_inner inner CG iterations on (K + s2p I),
   Nystrom-preconditioned, inside an outer flexible PCG;
 - block-Jacobi additive Schwarz on space-filling-curve blocks, alone
   and with a Nystrom coarse-space deflation.
 
 Everything is numpy float64 — iteration counts here are spectrum-driven
-(the chip's compensated matvec noise 2.4e-10*n sits far below the 1e-3
-nugget), so they transfer to the chip up to the modeled inner-operator
-error.  Outputs one JSON line per config.
+(a compensated or float64 matvec's noise sits far below the 1e-3
+nugget), so they transfer to the device up to the modeled
+inner-operator error.  Outputs one JSON line per config.
 """
 
 from __future__ import annotations
@@ -192,7 +191,7 @@ def main():
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     from bench import _build_kernels
-    from linpde_gp_tpu.ops.pallas_gram import kernel_term_specs
+    from linpde_gp_tpu.ops.gram import kernel_term_specs
 
     k_hh, _ = _build_kernels()
     scale, terms = kernel_term_specs(k_hh)
@@ -255,11 +254,11 @@ def main():
                     "build_s": round(time.time() - t0, 1)})
 
     if "nystrom_f32" in want:
-        # Hypothesis test (round 5): the chip's excess PCG iterations at
-        # N=1e5 (326 measured vs ~100 spectrum-predicted) come from the
-        # PLAIN-f32 build of the preconditioner factors, whose coherent
-        # evaluation error (~3.3e-7*n*k0, PERFORMANCE.md) dwarfs sigma^2
-        # at scale.  Reproduce on host: evaluate K_XZ/K_ZZ in float32.
+        # Hypothesis test: excess PCG iterations at N=1e5 (326 vs ~100
+        # spectrum-predicted) come from the PLAIN-f32 build of the
+        # preconditioner factors, whose coherent evaluation error
+        # (~3.3e-7*n*k0, ops/ff.py) dwarfs sigma^2 at scale.  Reproduce
+        # on host: evaluate K_XZ/K_ZZ in float32.
         for m in ranks:
             if m > n // 2:
                 continue

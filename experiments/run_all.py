@@ -1,4 +1,4 @@
-"""Run every experiment and write a consolidated RESULTS.md."""
+"""Run every experiment and print a consolidated Markdown report."""
 
 import io
 import json
@@ -53,24 +53,7 @@ def main():
         out.append(json.dumps(payload, indent=2))
         out.append("```")
         out.append("")
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "RESULTS.md",
-    )
-    # PRESERVE the chip-measured sections (anything from the first
-    # "# Round-N TPU measurements" heading on): this runner only owns
-    # the CPU experiment block at the top.
-    tail = ""
-    if os.path.exists(path):
-        existing = open(path).read()
-        idx = existing.find("# Round-")
-        if idx >= 0:
-            tail = existing[idx:]
-    with open(path, "w") as fh:
-        fh.write("\n".join(out))
-        if tail:
-            fh.write("\n" + tail)
-    print(f"wrote {path}")
+    print("\n".join(out))
 
 
 if __name__ == "__main__":

@@ -1,15 +1,17 @@
-"""Banded compact-support matvec: the measured O(N·band) win (VERDICT r3
-item 6, round-2 item 4's missing half).
+"""Banded compact-support matvec: the O(N·band) win.
 
-Wendland kernels vanish beyond their support radius; the banded Pallas
-schedule (``ops/pallas_gram.make_banded_matvec``) visits only the column
+Wendland kernels vanish beyond their support radius; the banded schedule
+(``ops/gram.make_banded_matvec``) visits only the column
 tiles inside the window — exact, not approximate.  The reference routes
 Wendland through the same dense KeOps reduction as everything else
 (``covfuncs/_wendland.py:23-29``) and never exploits the sparsity.
 
-Measures, at N=1e5 on the chip: dense streaming matvec vs banded matvec
-steady-state wall-clock + the band fraction, and a full banded
-conditioning (IterativeGPRegressor auto-routes the banded path).
+Measures, at N=1e5 on the GPU (N=4096 on the CPU): dense streaming
+matvec vs banded matvec steady-state wall-clock + the band fraction, and
+a full banded conditioning (IterativeGPRegressor auto-routes the banded
+path).
+
+Usage:  python experiments/wendland_banded.py
 """
 
 import json
@@ -27,50 +29,27 @@ def _log(msg):
 
 
 def main():
-    import jax
+    from common import setup
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-    )
-    if jax.default_backend() == "tpu":
-        os.makedirs(cache_dir, exist_ok=True)
-        try:
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        except Exception:
-            pass
-    jax.config.update("jax_default_matmul_precision", "highest")
-    on_tpu = jax.default_backend() == "tpu"
-    if not on_tpu:
-        jax.config.update("jax_enable_x64", True)
+    lgt = setup()
+    import jax
+    from linpde_gp_tpu import backend
+
+    on_gpu = backend.platform() == "gpu"
 
     import jax.numpy as jnp
 
-    import linpde_gp_tpu as lgt
     from linpde_gp_tpu.models.iterative import IterativeGPRegressor
     from linpde_gp_tpu.ops.kernels.wendland import WendlandCovarianceFunction
-    from linpde_gp_tpu.ops.pallas_gram import (
+    from linpde_gp_tpu.ops.gram import (
         kernel_term_specs,
+        gram_matvec,
         make_banded_matvec,
-        pallas_gram_matvec,
     )
 
-    n = int(os.environ.get("WB_N", 100_000 if on_tpu else 4096))
+    n = int(os.environ.get("WB_N", 100_000 if on_gpu else 4096))
     ell = float(os.environ.get("WB_ELL", 0.05))  # support radius
-    dtype = np.float32 if on_tpu else np.float64
-    # Round-5 banded tiles (VERDICT r4 item 6): the banded grid's
-    # per-step floor dominated at (512, 512) — growing tile0 widens the
-    # window only by the row tile's coordinate spread (~tile0/n of the
-    # domain), so fewer, larger steps amortize the floor at ~no extra
-    # pair work.
-    # (1024, 256) keeps the compensated body's (tile0 x tile1) hi/lo
-    # temporaries inside the ~16 MB VMEM budget; larger tile0 via env.
-    if on_tpu:
-        lgt.config.set(
-            banded_tile0=int(os.environ.get("WB_TILE0", 1024)),
-            banded_tile1=int(os.environ.get("WB_TILE1", 256)),
-        )
+    dtype = np.float64
 
     # Quasi-uniform 1-D points on [0, 1]: support 0.05 -> ~5% band.
     rng = np.random.default_rng(0)
@@ -90,17 +69,15 @@ def main():
     v_dev = jnp.asarray(v)
 
     def timed(fn, *args):
-        out = fn(*args)
-        _ = np.asarray(out[:4])  # force readback (enqueue-lying transport)
+        out = jax.block_until_ready(fn(*args))
         times = []
         for _i in range(3):
             t0 = time.perf_counter()
-            out = fn(*args)
-            _ = np.asarray(out[:4])
+            out = jax.block_until_ready(fn(*args))
             times.append(time.perf_counter() - t0)
         return min(times), out
 
-    dense_fn = jax.jit(lambda x, w: scale * pallas_gram_matvec(terms, x, x, w))
+    dense_fn = jax.jit(lambda x, w: gram_matvec(spec, x, x, w))
     t_dense, out_dense = timed(dense_fn, x_dev, v_dev)
     _log(f"dense streaming matvec: {t_dense * 1e3:.1f} ms "
          f"({n * n / t_dense / 1e9:.1f} G pair/s)")
@@ -119,18 +96,10 @@ def main():
     Y = np.sin(8.0 * X).astype(dtype)
     prior = lgt.GaussianProcess(lgt.functions.Zero(()), k)
     t0 = time.perf_counter()
-    # Compensated banded evaluation (and noise 1e-3): with ~12% of 1e5
-    # columns inside the band, the plain-f32 coherent error floor is
-    # ~3.3e-7 * 1.2e4 ≈ 4e-3 of k(0) — noise below it makes the
-    # computed operator indefinite and CG diverges (measured round 4:
-    # relres 1.8e9 at noise 1e-4 plain); the compensated floor is ~3e-6.
     reg = IterativeGPRegressor(
-        prior, X, Y, noise_variance=1e-3 if on_tpu else 1e-8,
-        tol=1e-5 if on_tpu else 1e-10, maxiter=512,
-        precond_rank=1024 if on_tpu else 128,
-        compensated=bool(int(os.environ.get("WB_COMPENSATED", 1))) and on_tpu,
-        # Split per-iteration programs (see pcg_host / CLAUDE.md).
-        host_cg=bool(int(os.environ.get("WB_HOST_CG", 1))) and on_tpu,
+        prior, X, Y, noise_variance=1e-3 if on_gpu else 1e-8,
+        tol=1e-5 if on_gpu else 1e-10, maxiter=512,
+        precond_rank=1024 if on_gpu else 128,
     )
     _ = np.asarray(reg.representer_weights[:4])
     t_cond = time.perf_counter() - t0
@@ -151,7 +120,7 @@ def main():
         "condition_s_incl_compile": round(t_cond, 2),
         "pcg_iters": iters,
         "banded_routed": routed,
-        "backend": jax.default_backend(),
+        "backend": backend.platform(),
     }))
 
 

@@ -1,7 +1,7 @@
-"""linpde_gp_tpu — a TPU-native physics-informed Gaussian-process
-inference framework.
+"""linpde_gp_tpu — a physics-informed Gaussian-process inference
+framework in JAX, run on the CPU and on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 ``marvinpfoertner/linpde-gp`` (arXiv:2212.12474): linear PDEs (and general
 linear-operator inverse problems) solved by conditioning a GP prior on
 observations of linear functionals — point evaluations, derivatives,
@@ -11,8 +11,10 @@ closed-form posterior mean and covariance.
 Top-level layout:
 
 - ``ops``       kernels, operator DSL, functionals, cross-covariances,
-                structured linalg, transformation rule engine, Pallas
-                Gram kernels.
+                structured linalg, transformation rule engine, Gram
+                assembly and streaming matvecs.
+- ``backend``   the one routing decision (CPU / GPU) and the compile
+                cache.
 - ``models``    functions, domains, random variables/processes, the GP
                 conditioning engine, PDE problem definitions.
 - ``parallel``  device-mesh sharding: distributed Gram assembly, blocked

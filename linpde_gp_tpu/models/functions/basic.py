@@ -112,7 +112,7 @@ class Piecewise(Function):
         return len(self._fns)
 
     def _evaluate(self, x):
-        # Evaluate every piece and select — branchless, TPU-friendly.
+        # Evaluate every piece and select — branchless, jit-friendly.
         out = jnp.zeros_like(x)
         for i, fn in enumerate(self._fns):
             lo, hi = self._xs[i], self._xs[i + 1]

@@ -5,7 +5,7 @@ Capability parity with the reference's ``Monomial`` / ``Polynomial`` /
 ``Fraction`` arithmetic is the host-side symbolic substrate used to derive
 Matérn/Wendland closed-form kernels; evaluation is a Horner chain in jnp
 (single path, jit-fuseable — the KeOps Horner path of the reference is
-subsumed by XLA fusion / the Pallas Gram kernels).
+subsumed by XLA fusion of the Gram reductions).
 """
 
 from __future__ import annotations

@@ -2,11 +2,12 @@
 
 Parity: reference ``randprocs/_gaussian_process/_conditional.py`` —
 ``ConditionalGaussianProcess`` with incremental block-Cholesky
-conditioning (call stack SURVEY.md §3.1/§3.2) — re-architected for TPU:
+conditioning (call stack SURVEY.md §3.1/§3.2) — re-architected for an
+accelerator:
 
-- The Gram factor is ONE dense HBM-resident lower-triangular matrix,
-  grown by ``chol_extend`` (triangular solve + matmul + small Cholesky,
-  all MXU ops) instead of the reference's nested ``BlockMatrix2x2`` tree.
+- The Gram factor is ONE dense device-resident lower-triangular matrix,
+  grown by ``chol_extend`` (triangular solve + matmul + small Cholesky)
+  instead of the reference's nested ``BlockMatrix2x2`` tree.
 - Posterior state ``(chol, residuals, weights)`` is a JAX pytree of
   arrays; all evaluation paths are jittable closures.
 - Conditioning again NEVER refactorizes the old block (the reference's
@@ -112,7 +113,7 @@ class GaussianProcess:
 
     @functools.cached_property
     def mean_jit(self):
-        """Jit-compiled posterior-mean evaluator (hot path on TPU)."""
+        """Jit-compiled posterior-mean evaluator (the evaluation hot path)."""
         return jax.jit(self.mean)
 
     @functools.cached_property
@@ -218,9 +219,9 @@ def _make_gram_solver(gram: jnp.ndarray):
     """Factor a Gram and return ``(chol, gram_kept, solve)``.
 
     Default: full-precision Cholesky, ``solve = cho_solve``.  With
-    ``config.solve_refinement`` and a float64 Gram: float32 factor on the
-    MXU + float64 preconditioned-CG refinement (``ops/linalg/refine.py``)
-    — the TPU-speed path to the reference's 1e-6 parity target.  The
+    ``config.solve_refinement`` and a float64 Gram: float32 factor +
+    float64 preconditioned-CG refinement (``ops/linalg/refine.py``) —
+    float32 factorization speed at the reference's 1e-6 parity.  The
     Gram is kept only in refinement mode (it feeds the residual matvecs
     and incremental extension).
     """
@@ -318,7 +319,10 @@ class ConditionalGaussianProcess(GaussianProcess):
         from ..ops.linalg.chol import logdet_from_chol
 
         n = self._residuals.shape[0]
-        quad = jnp.dot(self._residuals, self._representer_weights)
+        quad = jnp.dot(
+            self._residuals, self._representer_weights,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         return -0.5 * (
             quad + logdet_from_chol(self._chol) + n * jnp.log(2.0 * jnp.pi)
         )
@@ -415,7 +419,6 @@ class ConditionalMean(Function):
         m = self._prior_mean._evaluate(x)
         batch = x.shape[: x.ndim - self.input_ndim]
         m = jnp.broadcast_to(m, batch + self.output_shape)
-        # matvec may route through the Gram-free Pallas reduction.
         return m + self._kLas.matvec(x, self._weights)
 
 

@@ -1,8 +1,8 @@
 """Host-side native (C++/OpenMP) kernel reductions — KeOps equivalent.
 
-TPU production uses the Pallas assembler (``ops/pallas_gram``); this
-package covers the same role the reference's ``pykeops`` dependency
-plays on the host: JIT-specialized C++ map-reduce over kernel formulas.
+On the GPU the reductions run on the device (``ops/gram``); this
+package covers the role the reference's ``pykeops`` dependency plays on
+the host: JIT-specialized C++ map-reduce over kernel formulas.
 """
 
 from .engine import NativeGramEngine, available, engine_for, engine_for_spec

@@ -7,13 +7,13 @@ to an OpenMP (or CUDA) map-reduce (consumption sites listed in
 SURVEY.md §2, "Native / non-Python components"; e.g. reference
 ``covfuncs/_tensor_product.py:111-130``, ``functions/_polynomial.py:79-86``).
 
-On TPU that role is played by the tiled Pallas assembler
-(``ops/pallas_gram.py``).  On the host (float64 verification, oracles,
-CPU-only deployments) this module provides the same architecture as
-KeOps itself:
+On the GPU that role is played by the fused XLA evaluation of
+``ops/gram.py``.  On the host (float64
+verification, oracles, CPU-only deployments) this module provides the
+same architecture as KeOps itself:
 
 1. a kernel formula — the ``(scale, terms)`` sum-of-products spec shared
-   with the Pallas path (``ops/pallas_gram.kernel_term_specs``) — is
+   with the device path (``ops/gram.kernel_term_specs``) — is
    **code-generated to specialized C++** (polynomial coefficients become
    literals, Horner chains and factor products are fully unrolled),
 2. compiled once per formula with ``g++ -O3 -fopenmp`` into a shared
@@ -24,7 +24,7 @@ KeOps itself:
      (O(n0+n1) memory — KeOps' lazy ``LazyTensor`` reduction mode).
 
 Everything is float64 end-to-end: this engine is the high-precision
-host-side oracle, not the TPU production path.
+host-side oracle and the CPU production path.
 """
 
 from __future__ import annotations
@@ -275,7 +275,7 @@ def engine_for_spec(scale: float, terms: tuple) -> NativeGramEngine | None:
 
 def engine_for(kernel) -> NativeGramEngine | None:
     """Engine for a kernel in the sum-of-products closed-form family."""
-    from ..ops.pallas_gram import kernel_term_specs
+    from ..ops.gram import kernel_term_specs
 
     spec = kernel_term_specs(kernel)
     if spec is None:

@@ -146,56 +146,6 @@ class KernelFunctionalCrossCov(ProcessVectorCrossCovariance):
         new_kernel = apply_operator_to_kernel(op, self._kernel, argnum=proc_slot)
         return KernelFunctionalCrossCov(new_kernel, self._functional, self._argnum)
 
-    def matvec(self, x, w):
-        """Gram-free ``kLa(x) @ w`` via the tiled Pallas matvec when the
-        kernel belongs to the closed-form family (TPU only)."""
-        import jax
-
-        from ...config import config
-        from ..functionals.base import (
-            CompositeLinearFunctional,
-            ScaledLinearFunctional,
-            SumLinearFunctional,
-        )
-
-        functional = self._functional
-        if (
-            jax.default_backend() != "tpu"
-            or self._argnum != 1
-            or self._kernel.output_shape_0 != ()
-            or self._kernel.output_shape_1 != ()
-            or isinstance(
-                functional,
-                (ScaledLinearFunctional, SumLinearFunctional, CompositeLinearFunctional),
-            )
-        ):
-            return super().matvec(x, w)
-        from ..pallas_gram import kernel_term_specs, pallas_gram_matvec
-
-        spec = kernel_term_specs(self._kernel)
-        if spec is None:
-            return super().matvec(x, w)
-        try:
-            disc = functional.discretization()
-        except NotImplementedError:
-            return super().matvec(x, w)
-        x = jnp.asarray(x)
-        in_ndim = self._kernel.input_ndim
-        batch = x.shape[: x.ndim - in_ndim]
-        n_query = 1
-        for s in batch:
-            n_query *= s
-        if n_query * disc.num_points < config.pallas_gram_threshold:
-            return super().matvec(x, w)
-        scale, terms = spec
-        v = w if disc.weights is None else jnp.asarray(disc.weights).T @ w
-        x_flat = x.reshape((n_query, -1))
-        pts = disc.points.reshape((disc.num_points, -1))
-        out = pallas_gram_matvec(terms, x_flat, pts, v)
-        if scale != 1.0:
-            out = scale * out
-        return out.reshape(batch + out.shape[1:] if out.ndim > 1 else batch)
-
 
 class ScaledProcessVectorCrossCovariance(ProcessVectorCrossCovariance):
     def __init__(self, crosscov: ProcessVectorCrossCovariance, scalar):
@@ -414,9 +364,9 @@ def evaluate_crosscov_contraction(
     batch = x.shape[:batch_ndim]
 
     # Fast path for scalar-output kernels: the contraction is a Gram
-    # (n, nq) — route through the tiled Pallas assembler on TPU.
+    # (n, nq) — route through gram_matrix (native engine / fused XLA).
     if kernel.output_shape_0 == () and kernel.output_shape_1 == ():
-        from ..pallas_gram import gram_matrix
+        from ..gram import gram_matrix
 
         x_flat = x.reshape((-1,) + kernel.input_shape)
         if argnum == 1:

@@ -1,30 +1,26 @@
 """Float-float ("double-single") arithmetic for compensated kernel
-evaluation on the TPU VPU.
+evaluation in float32.
 
-Motivation (measured, PERFORMANCE.md): the float32 streaming Gram
-evaluation carries a COHERENT per-entry relative error of ~1e-6 — the
-TPU VPU's approximate transcendentals plus smooth rounding bias — so the
-computed Gram ``K + E`` has ``lambda_min`` drifting like ``-1e-6 * N *
-k(0)``.  At the north-star ``N = 1e5`` that forces 10% observation noise
-to keep CG convergent.  The reference never faces this because it is
-float64 end-to-end on CPU (e.g. its machine-precision posterior parity
-test, ``tests/linpde_gp/randprocs/test_posterior_gp.py:152-162``).
+Motivation: the float32 streaming Gram evaluation carries a COHERENT
+per-entry relative error of ~1e-6 (rounding bias of the transcendentals
+and Horner chains), so the computed Gram ``K + E`` has ``lambda_min``
+drifting like ``-1e-6 * N * k(0)``.  At ``N = 1e5`` that forces ~10%
+observation noise to keep float32 CG convergent.  The reference never
+faces this because it is float64 end-to-end on CPU (e.g. its
+machine-precision posterior parity test,
+``tests/linpde_gp/randprocs/test_posterior_gp.py:152-162``).
 
 The fix: carry the difference, the scaled distance, the Horner chains
 and the exponential in unevaluated float32 PAIRS ``(hi, lo)`` with
 ``hi + lo`` accurate to ~``eps32**2``.  All building blocks are
-error-free transformations (Knuth two-sum, Dekker split/two-prod — no
-FMA required, so they are exact under plain IEEE f32 ops, which is what
-both Mosaic and XLA emit) plus a Cody-Waite style accurate ``exp``.
+error-free transformations (Knuth two-sum, Dekker two-prod on halves
+split by a bit mask, which stay exact whether or not the compiler fuses
+multiplies into adds) plus a Cody-Waite style accurate ``exp``.
 Every op is an elementwise jnp op, so the module works identically
-inside Pallas kernel bodies, under ``shard_map``, and in plain XLA.
+under ``shard_map`` and in plain XLA.
 
-Cost: ~20-25x the RAW VPU ops of the plain evaluation, but a measured
-**5.4x** wall-clock on the chip (the plain kernel is not ALU-bound;
-PERFORMANCE.md roofline + measured table).  The payoff is per-entry
-evaluation error ~3e-8 max / coherent ||E||_2 ~ 2.4e-10*n (vs 6.5e-6 /
-3.3e-7*n plain, measured vs the f64 oracle) — a 1379x coherent-error
-reduction, so N=1e5 conditions at realistic noise levels.
+Cost: ~20-25x the arithmetic of the plain evaluation, for a per-entry
+error of ~1e-13 relative instead of ~1e-6.
 """
 
 from __future__ import annotations
@@ -49,9 +45,12 @@ __all__ = [
 ]
 
 
-def _splitter(dtype) -> float:
-    # 2**ceil(p/2) + 1 for a p-bit mantissa: 4097 (f32), 134217729 (f64).
-    return 4097.0 if jnp.dtype(dtype) == jnp.float32 else 134217729.0
+_SPLIT_MASK = {
+    # Keep the sign, the exponent and the top 11 (float32) / 25 (float64)
+    # explicit mantissa bits: 0xFFFFF000 and 0xFFFFFFFFF8000000 as signed.
+    "float32": (jnp.int32, -(1 << 12)),
+    "float64": (jnp.int64, -(1 << 27)),
+}
 
 
 def two_sum(a, b):
@@ -77,19 +76,28 @@ def two_diff(a, b):
 
 
 def _split(a, dtype):
-    # ``a`` must be coerced to the computation dtype FIRST: a Python
-    # float operand would otherwise be split at f64/python precision,
-    # making the halves too wide for exact f32 products (the residual
-    # then silently evaluates to zero).
+    """``a = hi + lo`` with ``hi`` the leading mantissa bits of ``a``, cut
+    by a bit mask.  Veltkamp's arithmetic split (``c = 4097 a; hi = c -
+    (c - a)``) is wrong once a compiler contracts ``c - a`` into a fused
+    multiply-add, as GPU compilers do; the mask split has no arithmetic to
+    contract.  ``a`` is coerced to the computation dtype first."""
+    itype, mask = _SPLIT_MASK[jnp.dtype(dtype).name]
+    if isinstance(a, (float, int, np.number)):  # constant: split on the host
+        x = np.array([a], jnp.dtype(dtype))
+        hi = (x.view(np.dtype(itype)) & mask).view(x.dtype)
+        return hi[0], (x - hi)[0]
     a = jnp.asarray(a, dtype)
-    c = _splitter(dtype) * a
-    big = c - a
-    hi = c - big
+    bits = jax.lax.bitcast_convert_type(a, itype) & mask
+    hi = jax.lax.bitcast_convert_type(bits, dtype)
     return hi, a - hi
 
 
 def two_prod(a, b):
-    """Error-free a * b = p + e (Dekker; exact without FMA)."""
+    """Error-free a * b = p + e (Dekker's product on masked halves).
+
+    Every partial product of the halves is exact in float32 (and all but
+    ``al * bl``, ~eps**3 of ``p``, in float64), so the result does not
+    change whether or not the compiler fuses a multiply into an add."""
     p = a * b
     dtype = jnp.result_type(p)
     ah, al = _split(a, dtype)
@@ -104,7 +112,7 @@ def two_prod(a, b):
 # The pair is kept UNNORMALIZED (|lo| may grow to a few ulps of hi over
 # a chain) — hi+lo stays accurate to ~eps^2 * chain_length, far below
 # the ~1e-10 target, and skipping the renormalization saves ~25% of the
-# VPU flops in the hot Gram evaluator (cost table in PERFORMANCE.md).
+# arithmetic in the hot Gram evaluator.
 
 
 def ff_add(x, y):
@@ -162,7 +170,7 @@ _LN2 = 0.6931471805599453094172321
 _LOG2E = 1.4426950408889634073599247
 # Taylor 1/k!, k = 0..10: rel. truncation error <= 0.347**11/11! ~ 2e-13
 # on the reduced range |r| <= ln2/2 — an order of magnitude below the
-# 1e-10 coherent-noise target (VERDICT r2 item 1), two Horner steps
+# 1e-10 coherent-noise target, two Horner steps
 # cheaper than full eps^2.
 _EXP_COEFFS = [1.0 / float(_math.factorial(k)) for k in range(11)]
 

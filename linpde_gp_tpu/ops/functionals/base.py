@@ -14,7 +14,7 @@ projections use fixed-order Gauss-Legendre panels (static shapes, exact to
 machine precision for the smooth kernels involved; replaces the
 reference's adaptive ``scipy.quad`` fallback, ``linfunctls/_integrals.py:
 38-57``).  This turns EVERY Gram/cross-covariance contraction into a
-weighted pairwise-kernel product — a matmul on TPU.
+weighted pairwise-kernel product — a matmul.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ the reference's numpy/jax/KeOps triple.  The same ``_evaluate`` runs
 - eagerly and under ``jit`` (posterior evaluation closures),
 - under ``jax.jvp``/``jax.jacfwd`` (the autodiff fallback used when no
   closed-form operator-transformed kernel is registered), and
-- inside the tiled Pallas Gram assembler (the KeOps replacement).
+- inside the fused Gram reductions of ``ops/gram.py`` (the KeOps
+  replacement).
 """
 
 from __future__ import annotations

@@ -11,10 +11,10 @@ callback differentiable to arbitrary order — so the autodiff diffop
 fallback (``ops/transforms/autodiff.py``) works on general-``nu``
 Matérn kernels, which even the reference's numpy layer cannot do.
 
-Hot-path note: this is a parity/correctness path, not a TPU hot path —
-each ``kv`` call round-trips device→host.  Half-integer ``nu`` (the only
+Hot-path note: this is a parity/correctness path, not a hot path — each
+``kv`` call round-trips device→host.  Half-integer ``nu`` (the only
 family the reference exercises in experiments) keeps the closed-form
-polynomial chain that runs fused on the VPU.
+polynomial chain that XLA fuses.
 """
 
 from __future__ import annotations

@@ -69,7 +69,7 @@ class Matern(StationaryMixin, CovarianceFunction):
 
     ``nu = inf`` degenerates to the Gaussian kernel; half-integer ``nu``
     uses the exact polynomial closed form evaluated by a Horner chain
-    (the TPU hot path).  General ``nu`` evaluates via the modified
+    (the hot path).  General ``nu`` evaluates via the modified
     Bessel function ``K_nu`` (``ops.kernels.bessel``) — capability
     parity with probnum's numpy layer, which the reference's jax path
     lacks (``covfuncs/_matern.py:46`` raises).

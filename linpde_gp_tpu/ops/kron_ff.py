@@ -18,9 +18,9 @@ Two compensation layers, mirroring the error sources:
    of the factor Grams (the analogue of the streaming evaluator's
    coherent per-entry error) drops to ~eps32^2.
 2. Every GEMM against a ``hi`` table is CHUNK-SPLIT along its contraction
-   dimension with the partial products combined by error-free two_sum on
-   the VPU — the f32 MXU accumulation error stays bounded by the chunk
-   length (default 64) instead of the full factor dimension, and the
+   dimension with the partial products combined by error-free two_sum —
+   the f32 GEMM accumulation error stays bounded by the chunk length
+   (default 64) instead of the full factor dimension, and the
    cross terms ``A_lo @ v`` are added in ff.
 
 Measured result (tests/test_kron_ff.py, CPU f32 vs the f64 oracle):
@@ -40,7 +40,7 @@ from .ff import two_sum
 
 def eval_factor_np(spec, d):
     """Float64 numpy evaluation of a univariate term-spec factor
-    (mirrors ``pallas_gram._eval_factor_tile``)."""
+    (mirrors ``gram._eval_groups`` for one factor)."""
     kind, scale, poly, parity, prefactor = spec
     d = np.asarray(d, np.float64)
     if kind == "matern":

@@ -1,17 +1,17 @@
-"""Incremental Cholesky factorization — the TPU-native replacement for the
+"""Incremental Cholesky factorization — the replacement for the
 reference's ``BlockMatrix2x2`` Schur-complement machinery
 (``linops/_block.py:192-268``).
 
 The reference stores the Gram matrix as a nested tree of 2x2 block
 operators, each level caching its own Cholesky factor and solving
-block-recursively.  On TPU that recursion maps poorly onto XLA (dynamic
+block-recursively.  That recursion maps poorly onto XLA (dynamic
 structure, many small kernels).  Instead we keep ONE dense lower-triangular
-factor resident in HBM and grow it with the standard block update
+factor resident in device memory and grow it with the standard block update
 
     K' = [[K, B], [B^T, D]]
     L' = [[L, 0], [C^T, L_S]],   C = L^{-1} B,  L_S = chol(D - C^T C)
 
-which is a pair of large triangular-solve/matmul ops (MXU-friendly) and
+which is a pair of large triangular-solve/matmul ops and
 exactly reproduces the `schur_update` capability: conditioning again never
 refactorizes the old block.
 """
@@ -44,8 +44,8 @@ def cholesky(gram: jnp.ndarray, jitter: float | None = None) -> jnp.ndarray:
     grid ``inset`` hacks.  Here:
 
     - a fixed jitter (``config.cholesky_jitter``, relative to the mean
-      diagonal) is always applied when configured — this is the traced /
-      TPU production path;
+      diagonal) is always applied when configured — this is the traced
+      (jitted) path;
     - in eager mode, a failed factorization (NaN diagonal) additionally
       retries with escalating relative jitter — the robustness layer for
       interactive use.
@@ -101,7 +101,7 @@ def chol_extend(
     n = chol_lower.shape[0]
     m = block.shape[0]
     c = jsl.solve_triangular(chol_lower, cross, lower=True)  # (n, m)
-    schur = _sym(block - c.T @ c)
+    schur = _sym(block - jnp.matmul(c.T, c, precision=jax.lax.Precision.HIGHEST))
     chol_schur = cholesky(schur)
     dtype = chol_lower.dtype
     top = jnp.concatenate([chol_lower, jnp.zeros((n, m), dtype)], axis=1)

@@ -224,10 +224,10 @@ class Kronecker(LinearOperator):
         n_rhs = x.shape[1]
         xt = x.reshape(a_cols, b_cols, n_rhs)
         # Apply B on middle axis, A on first axis.
-        # Explicit HIGHEST precision: this rig's default-precision f32
-        # einsum accumulates at bf16 fidelity (measured 2.4e-3 relative
-        # on a 96-contraction — enough to make honest-noise grid CG
-        # stall); do not rely on the global matmul-precision flag.
+        # Explicit HIGHEST precision: a default-precision f32 einsum may
+        # run in TF32/bf16 passes (~2e-3 relative on a 96-contraction —
+        # enough to make honest-noise grid CG stall); do not rely on the
+        # global matmul-precision flag.
         hi = jax.lax.Precision.HIGHEST
         xt = jnp.einsum("bk,akr->abr", self.B.todense(), xt, precision=hi)
         out = jnp.einsum("ca,abr->cbr", self.A.todense(), xt, precision=hi)

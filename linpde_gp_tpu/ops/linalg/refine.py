@@ -2,15 +2,14 @@
 
 The reference attains ~machine-precision posteriors by running float64
 end-to-end on CPU (``tests/linpde_gp/randprocs/test_posterior_gp.py:
-152-162`` asserts against a naive float64 Cholesky GP).  On TPU the MXU
-runs at full speed in float32 while float64 is software-emulated, so the
-speed-of-light recipe splits the work by precision:
+152-162`` asserts against a naive float64 Cholesky GP).  Where float32
+runs much faster than float64, the recipe splits the work by precision:
 
 - the O(n^3) Cholesky runs ONCE in float32 (+ a 1e-6-relative nugget for
-  factorizability) — pure MXU work;
+  factorizability);
 - the float64 system is then solved by preconditioned CG where each
-  iteration is one float64 mat-vec (O(n^2), affordable even emulated)
-  plus one triangular solve against the float32 factor.
+  iteration is one float64 mat-vec (O(n^2)) plus one triangular solve
+  against the float32 factor.
 
 Two details are load-bearing (measured on the Poisson-1D Dirichlet
 config, whose Gram is singular to machine precision):
@@ -77,7 +76,7 @@ def refined_solve(
     jt = target_jitter * jnp.mean(jnp.diagonal(gram))
 
     def matvec(v):
-        return gram @ v + jt * v
+        return jnp.matmul(gram, v, precision=jax.lax.Precision.HIGHEST) + jt * v
 
     b = jnp.asarray(b, hi)
     if b.ndim == 1:

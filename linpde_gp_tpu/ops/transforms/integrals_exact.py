@@ -129,7 +129,7 @@ def matern_hat_projection_crosscov(nu: float, lengthscale: float, basis):
     where ``Φ/Ψ`` are the zeroth/first-moment primitives of
     ``q(s)e^{-s}`` (exponential integration-by-parts series, exact in
     rational arithmetic).  Evaluation is four Horner chains per segment
-    endpoint — jittable, O(n·m) VPU work.
+    endpoint — jittable, O(n·m) elementwise work.
     """
     p_order = int(nu - 0.5)
     c = float(np.sqrt(2 * nu) / lengthscale)

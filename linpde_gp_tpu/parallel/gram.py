@@ -3,8 +3,8 @@
 The ``N x N`` operator-transformed Gram is sharded over a 2-D device
 mesh: row points are split over the ``rows`` axis, column points over
 ``cols``, and every device evaluates exactly its own tile with the local
-closed-form kernel — zero communication (the TPU-native replacement for
-KeOps' shared-memory reduction; SURVEY.md §2 "parallelism" checklist).
+closed-form kernel (``ops/gram.terms_gram``) — zero communication
+(SURVEY.md §2 "parallelism" checklist).
 """
 
 from __future__ import annotations
@@ -15,18 +15,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.pallas_gram import kernel_term_specs, pallas_gram
-
-
-def _eval_terms(scale, terms, x0, x1):
-    """Dense sum-of-products evaluation on local tiles (jnp, fusible),
-    via the collapsed multivariate-polynomial groups (shared
-    transcendentals, nested Horner)."""
-    from ..ops.pallas_gram import _collapse_terms, _eval_groups
-
-    groups = _collapse_terms(tuple(terms))
-    acc = _eval_groups(groups, lambda i: x0[:, None, i] - x1[None, :, i])
-    return scale * acc
+from ..ops.gram import kernel_term_specs, terms_gram
 
 
 def sharded_gram(kernel, X0, X1=None, *, mesh: Mesh) -> jnp.ndarray:
@@ -54,8 +43,6 @@ def sharded_gram(kernel, X0, X1=None, *, mesh: Mesh) -> jnp.ndarray:
         out_specs=P(rows, cols),
     )
     def assemble(x0_local, x1_local):
-        if jax.default_backend() == "tpu" and x0_local.shape[0] * x1_local.shape[0] >= (1 << 20):
-            return pallas_gram(terms, x0_local, x1_local) * scale
-        return _eval_terms(scale, terms, x0_local, x1_local)
+        return scale * terms_gram(terms, x0_local, x1_local, compensated=False)
 
     return assemble(x0, x1)

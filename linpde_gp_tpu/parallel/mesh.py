@@ -4,8 +4,10 @@ The reference is single-process (SURVEY.md L7: "no scheduler, no
 communication layer"); scale-out here follows the north-star design:
 GSPMD/``shard_map`` over a ``jax.sharding.Mesh``, with mesh axes
 ``("rows", "cols")`` for Gram/Cholesky work and ``("points",)`` for
-embarrassingly parallel posterior evaluation.  Collectives ride ICI
-within a slice; no hand-written NCCL analog exists or is needed.
+embarrassingly parallel posterior evaluation.  Collectives are XLA's
+(``psum``/``all_gather`` under ``shard_map``, NCCL on GPUs); the cards of
+one host reach each other all to all, so the mesh shape follows the
+algorithm alone.
 """
 
 from __future__ import annotations

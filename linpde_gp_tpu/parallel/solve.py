@@ -33,8 +33,8 @@ def _factorize(gram, *, mesh: Mesh, block_size: int, layout: str = "auto"):
     - 2-D block-cyclic (``distributed_cholesky_2d``, O(n²/Pr) comm per
       device) on 2-D meshes with P >= 4 and Pr | Pc — the default at
       pod-relevant device counts AT ANY SIZE: exact-width unrolled body
-      up to 128 block-columns, masked fori_loop body above (VERDICT r3
-      item 5 — the north-star N=1e5 / 391-block regime now routes 2-D);
+      up to 128 block-columns, masked fori_loop body above (the N=1e5 /
+      391-block regime routes 2-D);
     - 1-D block-cyclic for small meshes (its n³/(3P) per-device FLOPs at
       a single panel broadcast per step beats the 2-D routing overhead
       when the panel all-gather is not the bottleneck);
@@ -181,7 +181,7 @@ class DistributedConditioner:
         X_new = jnp.asarray(X_new)
         Y_new = jnp.asarray(Y_new).reshape(-1)
         m = Y_new.shape[0]
-        from ..ops.pallas_gram import gram_matrix
+        from ..ops.gram import gram_matrix
 
         def gram_block(kernel, X0, X1):
             # Extension batches are usually small; shard only when the
@@ -255,7 +255,7 @@ class DistributedConditioner:
         prior (the conditioner's residual convention).
         """
         assert self._factor is not None, "call condition() first"
-        from ..ops.pallas_gram import gram_matrix
+        from ..ops.gram import gram_matrix
 
         in_shape = prior_kernel.input_shape
         Xq = jnp.asarray(Xq).reshape((-1,) + in_shape)
@@ -264,7 +264,7 @@ class DistributedConditioner:
 
         # The query axis is processed in bounded blocks so the cross
         # workspace is O(size * query_block_size), never the replicated
-        # (size, nq) buffer flagged in VERDICT r2 weak #8 (SURVEY §5
+        # (size, nq) buffer (SURVEY §5
         # "points"-axis sharding; reference analog: the batched eval
         # paths of ``_conditional.py:223-251``).
         bq = min(int(query_block_size), nq)

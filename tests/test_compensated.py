@@ -1,12 +1,12 @@
 """Compensated (float-float) streaming Gram evaluation.
 
 The reference holds float64 machine-precision posterior parity
-(``tests/linpde_gp/randprocs/test_posterior_gp.py:152-162``); on TPU the
-float32 evaluation chain carries a coherent ~1e-6 per-entry error that
-makes the computed Gram indefinite at scale.  The compensated mode
-(``ops/ff.py`` + ``compensated=True`` in ``ops/pallas_gram``) must bring
+(``tests/linpde_gp/randprocs/test_posterior_gp.py:152-162``); in float32
+the evaluation chain carries a coherent ~1e-6 per-entry error that makes
+the computed Gram indefinite at scale.  The compensated mode
+(``ops/ff.py`` + ``compensated=True`` in ``ops/gram``) must bring
 the per-entry error to ~1e-12 so small-noise conditioning survives at
-N = 1e5 (VERDICT r2 item 1).
+N = 1e5.
 """
 
 import numpy as np
@@ -16,10 +16,10 @@ import pytest
 
 import linpde_gp_tpu as lgt
 from linpde_gp_tpu.ops import ff
-from linpde_gp_tpu.ops.pallas_gram import (
+from linpde_gp_tpu.ops.gram import (
     kernel_term_specs,
-    pallas_gram,
-    pallas_gram_matvec,
+    terms_gram,
+    xla_gram_matvec,
 )
 from linpde_gp_tpu.ops.transforms import apply_operator_to_kernel
 from linpde_gp_tpu.ops import diffops
@@ -39,7 +39,7 @@ def _heat_spec():
 
 def _f64_gram(spec, X0, X1):
     """Float64 oracle via the plain dense evaluator."""
-    from linpde_gp_tpu.ops.pallas_gram import _collapse_terms, _eval_groups
+    from linpde_gp_tpu.ops.gram import _collapse_terms, _eval_groups
 
     scale, terms = spec
     groups = _collapse_terms(tuple(terms))
@@ -100,14 +100,11 @@ def test_compensated_gram_entry_error(n):
     ref = _f64_gram(spec, X, X)
 
     plain = scale * np.asarray(
-        pallas_gram(terms, jnp.asarray(X), jnp.asarray(X), interpret=True),
+        terms_gram(terms, jnp.asarray(X), jnp.asarray(X)),
         np.float64,
     )
     comp = scale * np.asarray(
-        pallas_gram(
-            terms, jnp.asarray(X), jnp.asarray(X), interpret=True,
-            compensated=True,
-        ),
+        terms_gram(terms, jnp.asarray(X), jnp.asarray(X), compensated=True),
         np.float64,
     )
     k0 = ref[0, 0]
@@ -124,8 +121,8 @@ def test_compensated_gram_entry_error(n):
 
 
 def test_compensated_matvec_full_precision():
-    """The matvec keeps BOTH ff planes through the dot — effective entry
-    error ~1e-12, i.e. the λ_min drift criterion of VERDICT item 1."""
+    """The streaming matvec keeps BOTH ff planes through the contraction
+    — effective entry error ~1e-12, i.e. the λ_min drift criterion."""
     k_hh, spec = _heat_spec()
     scale, terms = spec
     n = 768
@@ -137,21 +134,21 @@ def test_compensated_matvec_full_precision():
     ref = _f64_gram(spec, X, X) @ v.astype(np.float64)
 
     out = scale * np.asarray(
-        pallas_gram_matvec(
+        xla_gram_matvec(
             terms, jnp.asarray(X), jnp.asarray(X), jnp.asarray(v),
-            interpret=True, compensated=True,
+            compensated=True,
         ),
         np.float64,
     )
     scale_ref = np.max(np.abs(ref))
     err = np.max(np.abs(out - ref)) / scale_ref
-    # f32 MXU/accumulator rounding only: ~sqrt(n_tiles) * eps32.
+    # f32 row-sum rounding only.
     assert err < 3e-6
 
     out_plain = scale * np.asarray(
-        pallas_gram_matvec(
+        xla_gram_matvec(
             terms, jnp.asarray(X), jnp.asarray(X), jnp.asarray(v),
-            interpret=True, compensated=False,
+            compensated=False,
         ),
         np.float64,
     )
@@ -164,7 +161,7 @@ def test_compensated_gram_coherent_error_floor():
     chain is already ~eps-level, so here we verify the compensated chain
     against a TIGHT absolute bound by reading the internal ff planes
     through the dense evaluator (no final f32 entry rounding)."""
-    from linpde_gp_tpu.ops.pallas_gram import _collapse_terms, _eval_groups_ff
+    from linpde_gp_tpu.ops.gram import _collapse_terms, _eval_groups_ff
 
     k_hh, spec = _heat_spec()
     scale, terms = spec
@@ -195,8 +192,7 @@ def test_wendland_compensated():
     X = rng.uniform(-1.0, 1.0, (256, 1)).astype(np.float32)
     ref = _f64_gram(spec, X, X)
     comp = scale * np.asarray(
-        pallas_gram(terms, jnp.asarray(X), jnp.asarray(X), interpret=True,
-                    compensated=True),
+        terms_gram(terms, jnp.asarray(X), jnp.asarray(X), compensated=True),
         np.float64,
     )
     assert np.max(np.abs(comp - ref)) / ref[0, 0] < 1e-7

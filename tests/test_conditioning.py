@@ -299,7 +299,7 @@ def test_iterative_kronecker_gram_matvec_on_grids():
     from linpde_gp_tpu.models.domains.grid import TensorProductGrid
     from linpde_gp_tpu.models.iterative import IterativeGPRegressor
     from linpde_gp_tpu.ops import diffops
-    from linpde_gp_tpu.ops.pallas_gram import gram_matrix
+    from linpde_gp_tpu.ops.gram import gram_matrix
 
     k = 1.3 * lgt.kernels.TensorProduct(
         lgt.kernels.Matern((), nu=1.5, lengthscales=0.8),

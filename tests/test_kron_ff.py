@@ -2,8 +2,8 @@
 
 The plain-f32 Kronecker evaluation of the heat ``H k H*`` closed form
 carries ~600*eps32 term-cancellation error — measured 7e-2 relative at a
-(200, 100) grid, 140x a 1e-3 nugget — which made the round-5 grid-mode
-chip run stall at relres 0.34.  These tests pin the compensated path's
+(200, 100) grid, 140x a 1e-3 nugget — enough to stall a float32
+grid-mode solve at relres 0.34.  These tests pin the compensated path's
 accuracy and its engagement in the regressor.
 """
 
@@ -16,7 +16,7 @@ import linpde_gp_tpu as lgt
 from linpde_gp_tpu.models.domains.grid import TensorProductGrid
 from linpde_gp_tpu.ops import diffops
 from linpde_gp_tpu.ops.kron_ff import KronFFMatvec
-from linpde_gp_tpu.ops.pallas_gram import kernel_term_specs
+from linpde_gp_tpu.ops.gram import kernel_term_specs
 from linpde_gp_tpu.ops.transforms import apply_operator_to_kernel
 
 
@@ -77,10 +77,10 @@ def test_kron_ff_matches_f64_oracle():
         )
     # The compensated path must stay far below a 1e-3-relative nugget
     # (diag ~ 0.5 -> 5e-4 abs) and never lose to the honest-f32 GEMM
-    # reference.  (The worst REAL hazard is platform-specific: this
-    # rig's DEFAULT-precision einsum accumulates at bf16 fidelity —
-    # 2.4e-3 relative on a 96-contraction, which stalled the round-5
-    # grid chip run; ops/linalg/linops.py now pins HIGHEST explicitly.)
+    # reference.  (The worst REAL hazard is platform-specific: a
+    # DEFAULT-precision float32 einsum may accumulate at bf16/TF32
+    # fidelity — 2.4e-3 relative on a 96-contraction, enough to stall
+    # a grid solve; ops/linalg/linops.py pins HIGHEST explicitly.)
     assert worst_ff < 1.05 * worst_plain + 1e-7
     assert worst_ff < 5e-5
 

@@ -236,8 +236,8 @@ def test_pcg_block_host_matches_device_block():
 
 
 def test_iterative_regressor_host_cg_matches_device():
-    """IterativeGPRegressor(host_cg=True) — the north-star TPU path on
-    this rig — must reproduce the default while_loop solve exactly."""
+    """IterativeGPRegressor(host_cg=True) — the host-orchestrated CG
+    loop — must reproduce the default while_loop solve exactly."""
     import linpde_gp_tpu as lgt
     from linpde_gp_tpu.models.iterative import IterativeGPRegressor
     from linpde_gp_tpu.ops import diffops

@@ -15,7 +15,7 @@ import linpde_gp_tpu as lgt
 from linpde_gp_tpu import native
 from linpde_gp_tpu.config import config
 from linpde_gp_tpu.ops import diffops
-from linpde_gp_tpu.ops.pallas_gram import gram_matrix, gram_matvec, kernel_term_specs
+from linpde_gp_tpu.ops.gram import gram_matrix, gram_matvec, kernel_term_specs
 from linpde_gp_tpu.ops.transforms import apply_operator_to_kernel
 
 pytestmark = pytest.mark.skipif(

@@ -104,16 +104,15 @@ def test_end_to_end_sharded_poisson():
     mean2, std2 = sharded_posterior_eval(post, xq, mesh=mesh, with_std=True)
     np.testing.assert_allclose(np.asarray(mean2), np.asarray(post.mean(xq)), atol=1e-10)
     np.testing.assert_allclose(np.asarray(std2), np.asarray(post.std(xq)), atol=1e-10)
-    # Keep the mean-only program gated too (ADVICE r4: the with_std=False
-    # branch fell out of the fast tier after test consolidation).
+    # Keep the mean-only (with_std=False) program gated too.
     mean_only = sharded_posterior_eval(post, xq, mesh=mesh, with_std=False)
     np.testing.assert_allclose(np.asarray(mean_only), np.asarray(mean2), atol=1e-12)
 
 
 def test_pallas_gram_interpret_matches_dense():
-    """The Pallas tiled Gram assembler (interpret mode on CPU) must agree
-    with broadcast evaluation."""
-    from linpde_gp_tpu.ops.pallas_gram import kernel_term_specs, pallas_gram
+    """The fused closed-form Gram assembler (``terms_gram``) must agree
+    with the kernel's own broadcast evaluation."""
+    from linpde_gp_tpu.ops.gram import kernel_term_specs, terms_gram
 
     k = lgt.kernels.TensorProduct(
         lgt.kernels.Matern((), nu=1.5, lengthscales=2.5),
@@ -129,7 +128,7 @@ def test_pallas_gram_interpret_matches_dense():
     scale, terms = kernel_term_specs(kk)
     X0 = rng.uniform(-1, 1, (40, 2))
     X1 = rng.uniform(-1, 1, (70, 2))
-    G = pallas_gram(terms, jnp.asarray(X0), jnp.asarray(X1), interpret=True)
+    G = terms_gram(terms, jnp.asarray(X0), jnp.asarray(X1))
     dense = kk.matrix(jnp.asarray(X0), jnp.asarray(X1))
     np.testing.assert_allclose(scale * np.asarray(G), np.asarray(dense), atol=1e-12)
 
@@ -258,7 +257,7 @@ def test_distributed_conditioner_incremental_batches():
     import scipy.linalg
 
     from linpde_gp_tpu.ops import diffops
-    from linpde_gp_tpu.ops.pallas_gram import gram_matrix
+    from linpde_gp_tpu.ops.gram import gram_matrix
     from linpde_gp_tpu.ops.transforms import apply_operator_to_kernel
     from linpde_gp_tpu.parallel import DistributedConditioner
 
@@ -296,8 +295,8 @@ def test_distributed_conditioner_incremental_batches():
 def test_distributed_posterior_eval_mean_and_std():
     """Posterior mean/std against the MESH-SHARDED factor (multi-RHS
     distributed forward solve) must match the dense single-device
-    posterior — the factor is never replicated (VERDICT round-1 item 5;
-    reference equivalent ``_conditional.py:223-251``)."""
+    posterior — the factor is never replicated (reference equivalent
+    ``_conditional.py:223-251``)."""
     from linpde_gp_tpu.ops import diffops
     from linpde_gp_tpu.ops.transforms import apply_operator_to_kernel
     from linpde_gp_tpu.parallel import DistributedConditioner
@@ -345,8 +344,7 @@ def test_distributed_posterior_eval_mean_and_std():
 
 def test_distributed_cholesky_2d_direct_small():
     """Fast-tier gate on the DIRECT distributed_cholesky_2d entry point
-    (ADVICE r4: it was only reachable through the slow tier / the
-    auto-router after consolidation)."""
+    (not only through the auto-router)."""
     from linpde_gp_tpu.parallel import distributed_cholesky_2d
 
     mesh = make_mesh(8)  # 2 x 4
@@ -363,11 +361,11 @@ def test_distributed_cholesky_2d_direct_small():
 @pytest.mark.slow
 def test_distributed_cholesky_2d_matches_dense():
     """2-D block-cyclic (ScaLAPACK-layout) factorization over a 2x4 mesh
-    must equal the dense Cholesky in natural layout (VERDICT round-1
-    item 6 — the O(n^2/sqrt(P))-communication pod-scale variant)."""
+    must equal the dense Cholesky in natural layout (the
+    O(n^2/sqrt(P))-communication variant)."""
     from linpde_gp_tpu.parallel import distributed_cholesky_2d
 
-    mesh = make_mesh(8)  # 2 x 4 on the virtual CPU rig
+    mesh = make_mesh(8)  # 2 x 4 virtual CPU devices
     rng_l = np.random.default_rng(9)
     n, nb = 128, 16  # 8 block-columns: 2 cyclic rounds over the 4 mesh cols
     A = rng_l.standard_normal((n, n))
@@ -387,8 +385,8 @@ def test_distributed_cholesky_2d_matches_dense():
 
 def test_distributed_cholesky_2d_masked_many_blocks():
     """Masked fori_loop 2-D body above the 128-block unroll cap
-    (VERDICT r3 item 5: the north-star-size regime, e.g. N=1e5/nb=256 =
-    391 block-columns, must route 2-D)."""
+    (the north-star-size regime, e.g. N=1e5/nb=256 = 391 block-columns,
+    must route 2-D)."""
     from linpde_gp_tpu.parallel.solve import _factorize
 
     mesh = make_mesh(8)  # 2 x 4
@@ -408,9 +406,9 @@ def test_distributed_cholesky_2d_masked_many_blocks():
 
 
 def test_distributed_gram_matvec_matches_dense():
-    """Row-sharded streaming matvec (VERDICT r2 item 3: the mesh story
-    for the gram-free north-star path)."""
-    from linpde_gp_tpu.ops.pallas_gram import kernel_term_specs
+    """Row-sharded streaming matvec (the mesh story for the gram-free
+    north-star path)."""
+    from linpde_gp_tpu.ops.gram import kernel_term_specs
     from linpde_gp_tpu.parallel import distributed_gram_matvec
 
     mesh = make_mesh(8)
@@ -473,7 +471,7 @@ def test_distributed_iterative_matches_single_device():
     np.testing.assert_allclose(m_d, m_s, rtol=0, atol=1e-8)
 
     # Pointwise variance: mesh blocked multi-RHS PCG vs the single-device
-    # pcg_block path (VERDICT r3 item 4).  block_size=32 forces several
+    # pcg_block path.  block_size=32 forces several
     # query blocks including a padded last block.
     v_s = np.asarray(single.var(jnp.asarray(Xq)))
     v_d = np.asarray(dist.var(jnp.asarray(Xq), block_size=32))
@@ -482,10 +480,10 @@ def test_distributed_iterative_matches_single_device():
 
 @pytest.mark.slow
 def test_distributed_iterative_banded_wendland():
-    """Compact-support routing on the mesh (VERDICT r3 item 6): the
-    distributed regressor internally sorts points and runs the banded
-    Pallas schedule per device; results must match the single-device
-    path in the CALLER's point order."""
+    """Compact-support routing on the mesh: the distributed regressor
+    internally sorts points and runs the banded schedule per device;
+    results must match the single-device path in the CALLER's point
+    order."""
     from linpde_gp_tpu.models.iterative import IterativeGPRegressor
     from linpde_gp_tpu.ops.kernels.wendland import WendlandCovarianceFunction
     from linpde_gp_tpu.parallel import DistributedIterativeGPRegressor
@@ -500,8 +498,8 @@ def test_distributed_iterative_banded_wendland():
     X = rng_l.uniform(0.0, 1.0, n)
     Y = np.sin(7 * X)
     kw = dict(noise_variance=1e-6, tol=1e-10, maxiter=1200, precond_rank=64)
-    prev_tile = lgt.config.matvec_tile
-    lgt.config.set(matvec_tile=64)  # make the band non-trivial at n=600
+    prev_tile = lgt.config.band_tile
+    lgt.config.set(band_tile=64)  # make the band non-trivial at n=420
     try:
         single = IterativeGPRegressor(prior, X, Y, **kw)
         dist = DistributedIterativeGPRegressor(prior, X, Y, mesh=mesh, **kw)
@@ -523,7 +521,7 @@ def test_distributed_iterative_banded_wendland():
             rtol=0, atol=1e-8,
         )
     finally:
-        lgt.config.set(matvec_tile=prev_tile)
+        lgt.config.set(band_tile=prev_tile)
 
 
 def test_distributed_iterative_no_preconditioner():

@@ -1,10 +1,10 @@
-"""Round-5 solver upgrades: device-state float-float CG and the
-host-factorized (hybrid) streamed Nystrom build.
+"""Device-state float-float CG and the host-factorized (hybrid)
+streamed Nystrom build.
 
 Reference context: the reference solves densely in float64
 (``tests/linpde_gp/randprocs/test_posterior_gp.py``); these components
-are what make the gram-free float32 TPU path match that accuracy class
-at north-star sizes (PERFORMANCE.md).
+are what make the gram-free float32 path match that accuracy class at
+north-star sizes.
 """
 
 import numpy as np
@@ -55,8 +55,8 @@ def test_ff_scalar_helpers():
 
 def test_pcg_ff_matches_host_f64_cg():
     """ff device-state CG reaches the same tolerance class as the
-    host-float64 loop on an ill-conditioned f32 system (the round-4
-    finding was that plain-f32 CG state stalls at ~6e-4)."""
+    host-float64 loop on an ill-conditioned f32 system (plain-f32 CG
+    state stalls at ~6e-4)."""
     A, b, _ = _spd_system(n=384, cond=3e5)
     sigma = 1e-4
     A_np = A.astype(np.float64) + sigma * np.eye(A.shape[0])
@@ -174,9 +174,9 @@ def test_hybrid_build_matches_legacy_quality():
 
 def test_hybrid_build_f32_delta_floor():
     """In float32 the damping delta must respect the device-precision
-    apply floor ``c * eps32 * lambda_1`` (round-5 chip stall: without it
-    the Woodbury cancellation noise exceeds the deflated-direction
-    output and CG stalls at ~5e-4)."""
+    apply floor ``c * eps32 * lambda_1`` (without it the Woodbury
+    cancellation noise exceeds the deflated-direction output and CG
+    stalls at ~5e-4)."""
     rng = np.random.default_rng(13)
     n, m = 400, 64
     X = np.sort(rng.uniform(-1, 1, n)).astype(np.float32)[:, None]
@@ -315,8 +315,8 @@ def test_regressor_refit_matches_fresh():
 def test_regressor_checkpoint_roundtrip(tmp_path):
     """save_posterior/load_posterior on an IterativeGPRegressor: solved
     weights and the Nyström factors survive; posterior mean identical;
-    refit works on the restored object (VERDICT aux: checkpoint/resume
-    for the gram-free engine, reference parity `_conditional.py` state)."""
+    refit works on the restored object (checkpoint/resume for the
+    gram-free engine, reference parity `_conditional.py` state)."""
     import linpde_gp_tpu as lgt
     from linpde_gp_tpu.models.iterative import IterativeGPRegressor
     from linpde_gp_tpu.utils.serialization import load_posterior, save_posterior

@@ -1,5 +1,4 @@
-"""Recorded-fixture parity for the five BASELINE configs (VERDICT r4
-missing #1 / next-step 7).
+"""Recorded-fixture parity for the five BASELINE configs.
 
 ``tests/fixtures/reference_parity.json`` holds posterior mean/std
 computed by the INDEPENDENT dense oracle

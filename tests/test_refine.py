@@ -1,6 +1,6 @@
 """Mixed-precision iterative refinement (``ops/linalg/refine.py``).
 
-The TPU-speed path to the reference's 1e-6 parity target
+Float32 factorization speed at the reference's 1e-6 parity target
 (``BASELINE.md`` row 3; reference asserts float64 machine precision in
 ``tests/linpde_gp/randprocs/test_posterior_gp.py:152-162``): float32
 O(n^3) factor + float64 preconditioned-CG refinement.

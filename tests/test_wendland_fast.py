@@ -1,7 +1,7 @@
-"""Wendland as a first-class fast kernel (round-2, VERDICT item 4):
-closed-form diffop transforms (matching the autodiff oracle off-diagonal
-and exact at d=0), term-spec routing through the Pallas/native Gram
-family, and compact-support structure.
+"""Wendland as a first-class fast kernel: closed-form diffop transforms
+(matching the autodiff oracle off-diagonal and exact at d=0), term-spec
+routing through the fused/native Gram family, and compact-support
+structure.
 
 Reference anchor: ``covfuncs/_wendland.py:23-245`` — the reference
 routes Wendland through KeOps but has NO diffop closed forms for it.
@@ -14,7 +14,7 @@ import pytest
 import linpde_gp_tpu as lgt
 from linpde_gp_tpu.ops import diffops
 from linpde_gp_tpu.ops.kernels.wendland import WendlandCovarianceFunction
-from linpde_gp_tpu.ops.pallas_gram import gram_matrix, kernel_term_specs, pallas_gram
+from linpde_gp_tpu.ops.gram import gram_matrix, kernel_term_specs, terms_gram
 from linpde_gp_tpu.ops.transforms import (
     AutodiffTransformedKernel,
     SumOfProductsKernel,
@@ -78,7 +78,7 @@ def test_wendland_diagonal_exact():
 
 def test_wendland_term_specs_and_pallas_gram():
     """Wendland belongs to the fast sum-of-products Gram family: term
-    specs exist, the (interpret-mode) Pallas assembler matches broadcast
+    specs exist, the fused closed-form assembler matches broadcast
     evaluation, and compact support produces exact zeros."""
     k = WendlandCovarianceFunction((), k=1, lengthscales=0.15)
     spec = kernel_term_specs(k)
@@ -86,7 +86,7 @@ def test_wendland_term_specs_and_pallas_gram():
     scale, terms = spec
     X0 = rng.uniform(0, 1, (40, 1))
     X1 = rng.uniform(0, 1, (56, 1))
-    G = scale * np.asarray(pallas_gram(terms, jnp.asarray(X0), jnp.asarray(X1), interpret=True))
+    G = scale * np.asarray(terms_gram(terms, jnp.asarray(X0), jnp.asarray(X1)))
     ref = np.asarray(k.matrix(jnp.asarray(X0[:, 0]), jnp.asarray(X1[:, 0])))
     np.testing.assert_allclose(G, ref, atol=1e-13)
     # Sparsity: pairs farther than the support radius are exactly zero.
@@ -146,22 +146,15 @@ def test_wendland_poisson_conditioning_end_to_end():
 
 
 def test_banded_matvec_matches_dense_1d():
-    """Banded Pallas matvec (compact-support tile skipping) vs the dense
-    Gram product, unsorted points, 1-D."""
-    from linpde_gp_tpu.ops.pallas_gram import make_banded_matvec
-
-    from linpde_gp_tpu.config import config
+    """Banded matvec (compact-support tile skipping) vs the dense Gram
+    product, unsorted points, 1-D."""
+    from linpde_gp_tpu.ops.gram import make_banded_matvec
 
     k = 1.7 * WendlandCovarianceFunction((), k=2, lengthscales=0.05)
     spec = kernel_term_specs(k)
     X0 = rng.uniform(0.0, 1.0, 300)
     X1 = rng.uniform(0.0, 1.0, 1500)
-    saved = config.matvec_tile
-    config.set(matvec_tile=128)
-    try:
-        mv = make_banded_matvec(spec, X0, X1, interpret=True)
-    finally:
-        config.set(matvec_tile=saved)
+    mv = make_banded_matvec(spec, X0, X1, tile0=128, tile1=128)
     v = rng.standard_normal(1500)
     dense = np.asarray(k.matrix(jnp.asarray(X0), jnp.asarray(X1))) @ v
     np.testing.assert_allclose(np.asarray(mv(v)), dense, rtol=0, atol=1e-12)
@@ -177,7 +170,7 @@ def test_banded_matvec_matches_dense_1d():
 def test_banded_matvec_diffop_transformed_2d():
     """Banding survives diffop transforms (derivatives keep the support)
     and tensor-product kernels: band on dim 0, full range on dim 1."""
-    from linpde_gp_tpu.ops.pallas_gram import (
+    from linpde_gp_tpu.ops.gram import (
         compact_support_radius,
         make_banded_matvec,
     )
@@ -193,7 +186,7 @@ def test_banded_matvec_diffop_transformed_2d():
     spec = kernel_term_specs(kk)
     assert compact_support_radius(spec[1], 0) == pytest.approx(0.08)
     X = rng.uniform(0.0, 1.0, (256, 2))
-    mv = make_banded_matvec(spec, X, X, interpret=True)
+    mv = make_banded_matvec(spec, X, X)
     v = rng.standard_normal(256)
     dense = np.asarray(kk.matrix(jnp.asarray(X))) @ v
     np.testing.assert_allclose(np.asarray(mv(v)), dense, rtol=1e-9, atol=1e-10)
@@ -202,32 +195,30 @@ def test_banded_matvec_diffop_transformed_2d():
 def test_banded_matvec_radius_covers_domain():
     """Radius larger than the domain degrades to the full band and stays
     exact; non-compact kernels require an explicit radius."""
-    from linpde_gp_tpu.ops.pallas_gram import make_banded_matvec
+    from linpde_gp_tpu.ops.gram import make_banded_matvec
 
     k = WendlandCovarianceFunction((), k=1, lengthscales=5.0)
     spec = kernel_term_specs(k)
     X = rng.uniform(0.0, 1.0, 150)
-    mv = make_banded_matvec(spec, X, X, interpret=True)
+    mv = make_banded_matvec(spec, X, X)
     v = rng.standard_normal(150)
     dense = np.asarray(k.matrix(jnp.asarray(X))) @ v
     np.testing.assert_allclose(np.asarray(mv(v)), dense, rtol=0, atol=1e-12)
 
     km = lgt.kernels.Matern((), nu=1.5, lengthscales=0.3)
     with pytest.raises(ValueError, match="not compactly supported"):
-        make_banded_matvec(kernel_term_specs(km), X, X, interpret=True)
+        make_banded_matvec(kernel_term_specs(km), X, X)
 
 
 def test_iterative_regressor_routes_banded():
     """Compact-support kernels route the CG matvec through the banded
-    Pallas schedule automatically (VERDICT r2 item 4 — previously
-    shelf-ware)."""
+    schedule automatically."""
     import linpde_gp_tpu as lgt
     from linpde_gp_tpu.models.iterative import IterativeGPRegressor
 
     rng = np.random.default_rng(31)
-    # Small n: the CPU-interpret banded matvec is Python-per-tile slow;
-    # routing + correctness are size-independent (chip-scale numbers:
-    # experiments/wendland_banded_tpu.py).
+    # Routing + correctness are size-independent (large-n run:
+    # experiments/wendland_banded.py).
     n = 768
     X = np.sort(rng.uniform(0.0, 15.0, n))
     Y = np.sin(X)
@@ -235,8 +226,8 @@ def test_iterative_regressor_routes_banded():
         lgt.functions.Zero(()),
         lgt.kernels.WendlandCovarianceFunction((), k=1, lengthscales=0.5),
     )
-    prev_tile = lgt.config.matvec_tile
-    lgt.config.set(matvec_tile=64)  # band granularity at this small n
+    prev_tile = lgt.config.band_tile
+    lgt.config.set(band_tile=64)  # band granularity at this small n
     try:
         reg = IterativeGPRegressor(
             prior, X, Y, noise_variance=1e-3, tol=1e-8, maxiter=600,
@@ -259,4 +250,4 @@ def test_iterative_regressor_routes_banded():
         ref = np.asarray(prior.cov.matrix(jnp.asarray(xq), jnp.asarray(X))) @ w_ref
         np.testing.assert_allclose(mean, ref, rtol=0, atol=1e-6)
     finally:
-        lgt.config.set(matvec_tile=prev_tile)
+        lgt.config.set(band_tile=prev_tile)
